@@ -1,12 +1,12 @@
-/* peaqio — native host-side audio I/O for gstpeaq_tpu.
+/* peaqio — native host-side audio I/O for gstpeaq_jax.
  *
  * Replaces the reference CLI's GStreamer front-end
  * (filesrc ! wavparse ! audioconvert ! audioresample, src/peaq.c:154-209)
  * with a small C library: WAV decode (PCM 8/16/24/32 + IEEE float, incl.
  * WAVE_FORMAT_EXTENSIBLE) and a Kaiser-windowed polyphase resampler to
- * 48 kHz.  Exposed to Python via ctypes (gstpeaq_tpu/utils/native.py); used
+ * 48 kHz.  Exposed to Python via ctypes (gstpeaq_jax/utils/native.py); used
  * by the codec-sweep loader where Python-side decoding of 10k pairs would
- * bottleneck the TPU.
+ * bottleneck the device.
  *
  * Build: make -C native   (produces libpeaqio.so)
  */

@@ -10,12 +10,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gstpeaq_tpu import constants as C
-from gstpeaq_tpu import earparams as EP
-from gstpeaq_tpu.models import advanced, basic, movs as MOVS
-from gstpeaq_tpu.ops import ct_dft as CT
-from gstpeaq_tpu.ops import fft_ear as FE
-from gstpeaq_tpu.utils import testsignals as TS
+from gstpeaq_jax import constants as C
+from gstpeaq_jax import earparams as EP
+from gstpeaq_jax.models import advanced, basic, movs as MOVS
+from gstpeaq_jax.ops import ct_dft as CT
+from gstpeaq_jax.ops import fft_ear as FE
+from gstpeaq_jax.utils import testsignals as TS
 
 
 def rel_err(got, want):
@@ -99,7 +99,7 @@ def test_basic_pipeline_ct_equals_dense():
         k += 1
     ref = (0.5 * ref).astype(np.float32)
     test = (0.5 * test + 1e-4 * rng.standard_normal(n)).astype(np.float32)
-    from gstpeaq_tpu.ops import framing
+    from gstpeaq_jax.ops import framing
     n_frames = framing.num_frames(n, n, C.FFT_FRAMESIZE, C.FFT_STEPSIZE)
     sig = framing.pad_signal(ref[:, None], n_frames, C.FFT_FRAMESIZE,
                              C.FFT_STEPSIZE).T
@@ -125,7 +125,7 @@ def test_basic_pipeline_ct_equals_dense():
 def test_advanced_pipeline_ct_equals_dense():
     n = 64 * 1024
     sa, tr = TS.saw(n), TS.triangle(n)
-    from gstpeaq_tpu import api
+    from gstpeaq_jax import api
 
     want = api.peaq(sa, tr, advanced=True, dtype="float64")
 
@@ -133,7 +133,7 @@ def test_advanced_pipeline_ct_equals_dense():
     kf_ct = FE.build_consts(
         EP.fft_ear_params(C.ADVANCED_FFT_BAND_COUNT),
         truncate_spectrum=True, use_ct_dft=True)
-    from gstpeaq_tpu.ops import framing
+    from gstpeaq_jax.ops import framing
     n_fft = framing.num_frames(n, n, C.FFT_FRAMESIZE, C.FFT_STEPSIZE)
     n_fb = framing.num_frames(n, n, C.FB_FRAMESIZE, C.FB_FRAMESIZE)
     ref2 = np.stack([sa, sa], 0)

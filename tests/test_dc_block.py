@@ -8,8 +8,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gstpeaq_tpu.ops import dc_block
-from gstpeaq_tpu.ops import fb_ear as FB
+from gstpeaq_jax.ops import dc_block
+from gstpeaq_jax.ops import fb_ear as FB
 
 
 def _mk(n, t, seed=7, dtype=np.float32):
@@ -85,7 +85,7 @@ def test_dc_block_f64_streaming_state_tight():
 def test_process_signal_uses_dc_block_f32():
     """The f32 batch path rides the blocked cascade (blocked AND flat
     inputs) and stays equivalent to a forced-XLA-dc run."""
-    from gstpeaq_tpu import earparams as EP
+    from gstpeaq_jax import earparams as EP
     p = EP.fb_ear_params()
     k = FB.build_consts(p, dtype=jnp.float32)
     n_frames = 128
@@ -100,7 +100,7 @@ def test_process_signal_uses_dc_block_f32():
     # force the old XLA dc path for comparison
     lam = k.level_factor
     hp_old = FB.dc_reject(sig.astype(lam.dtype) * lam)
-    from gstpeaq_tpu.ops import dc_block as DB
+    from gstpeaq_jax.ops import dc_block as DB
     hp_new = DB.dc_chain_blocked(
         sig.reshape(2, t // 128, 128), lam).reshape(2, t)
     rel = (np.abs(np.asarray(hp_new) - np.asarray(hp_old)).max()

@@ -1,6 +1,6 @@
 """JAX pipeline vs the NumPy spec implementation (and reference goldens).
 
-The NumPy implementation in gstpeaq_tpu.utils.numpy_ref is itself gated
+The NumPy implementation in gstpeaq_jax.utils.numpy_ref is itself gated
 against the C reference's golden vectors and pinned ODGs (test_numpy_ref);
 here the vectorized/scanned JAX pipeline is held to near-machine agreement
 with that spec.
@@ -11,13 +11,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from gstpeaq_tpu import api
-from gstpeaq_tpu import constants as C
-from gstpeaq_tpu import earparams as EP
-from gstpeaq_tpu.ops import fb_ear as FB
-from gstpeaq_tpu.ops import fft_ear as FE
-from gstpeaq_tpu.utils import numpy_ref as R
-from gstpeaq_tpu.utils import testsignals as TS
+from gstpeaq_jax import api
+from gstpeaq_jax import constants as C
+from gstpeaq_jax import earparams as EP
+from gstpeaq_jax.ops import fb_ear as FB
+from gstpeaq_jax.ops import fft_ear as FE
+from gstpeaq_jax.utils import numpy_ref as R
+from gstpeaq_jax.utils import testsignals as TS
 
 
 def rel_err(got, want):
@@ -164,15 +164,14 @@ def test_advanced_unified_input_poisoned_tail():
 
 
 def test_accurate_tier_runs_both_modes(monkeypatch):
-    """The "accurate" precision tier (r4: the DENSE rDFT with every
-    front-end GEMM pinned to HIGHEST, api.use_accurate) must build and,
-    on CPU — where precision hints are no-ops — agree EXACTLY with the
-    default float32 tier (identical arithmetic: pure wiring test; the
-    TPU accuracy claim — worst |dODG| 1.4e-4 basic / 5.1e-4 advanced on
-    corpus v2 — is measured by tools/tpu_drift.py).  The CT path stays
+    """The "accurate" precision tier (the DENSE rDFT with every front-end
+    GEMM pinned to HIGHEST, api.use_accurate) must build and, on CPU —
+    where precision hints are no-ops — agree EXACTLY with the float32 tier
+    (identical arithmetic: pure wiring test; its accuracy on the device
+    is measured by tools/drift.py and chip_smoke.py).  The CT path stays
     forceable via GSTPEAQ_CT_DFT=1 and agrees to the CT-vs-dense
     arithmetic delta only."""
-    from gstpeaq_tpu.ops import fft_ear
+    from gstpeaq_jax.ops import fft_ear
     n = 30 * 1024
     ref, test = TS.saw(n), TS.triangle(n)
     acc = {}
@@ -180,7 +179,7 @@ def test_accurate_tier_runs_both_modes(monkeypatch):
         a = api.peaq(ref, test, advanced=adv, dtype="accurate")
         f = api.peaq(ref, test, advanced=adv, dtype="float32")
         assert np.isfinite(a.odg)
-        # same arithmetic on CPU (precision hints are TPU-only)
+        # same arithmetic on CPU (precision hints only act on the GPU)
         assert abs(a.odg - f.odg) < 1e-9, (adv, a.odg, f.odg)
         acc[adv] = a.odg
     # the CT A/B path still builds and runs: reassociated arithmetic
@@ -210,7 +209,7 @@ def test_unified_threshold_gates_match_flat():
     """One sliding-max pass (framing.sliding_max5_blocked) must reproduce
     BOTH ear models' data-boundary gates exactly, including quiet spans
     and hop-boundary windows."""
-    from gstpeaq_tpu.ops import framing
+    from gstpeaq_jax.ops import framing
     rng = np.random.default_rng(13)
     n_fft, n_fb = 32, 176            # t_fft = 33792 > t_fb = 33792 equal? no
     t_fft = (n_fft + 1) * 1024       # 33792
@@ -234,7 +233,7 @@ def test_unified_threshold_gates_match_flat_hops():
     """The HOP-layout [.., Tq, 1024] gate forms (the r5 ship layout whose
     rows are the rDFT's hop blocks) must reproduce both ear models' flat
     data-boundary gates exactly as well."""
-    from gstpeaq_tpu.ops import framing
+    from gstpeaq_jax.ops import framing
     rng = np.random.default_rng(13)
     n_fft, n_fb = 32, 176            # t_fft == t_fb == 33792 == 33 * 1024
     t_fft = (n_fft + 1) * 1024
@@ -259,7 +258,7 @@ def test_unified_threshold_gates_chunk_form_matches():
     producing pass emits per-64-lane maxima so the sample-rate max5
     never materializes) must give identical decisions to the max5 hop
     forms AND the flat reference on the same signal."""
-    from gstpeaq_tpu.ops import framing
+    from gstpeaq_jax.ops import framing
     rng = np.random.default_rng(13)
     n_fft, n_fb = 32, 176            # t_fft == t_fb == 33792 == 33 * 1024
     t_fft = (n_fft + 1) * 1024
@@ -295,7 +294,7 @@ def test_blocked_fb_input_matches_flat():
     Pallas DC fast path) must reproduce the flat [CH, T] path exactly:
     process_signal and the data-boundary threshold test."""
     import jax.numpy as jnp
-    from gstpeaq_tpu.ops import fb_ear as FB, framing
+    from gstpeaq_jax.ops import fb_ear as FB, framing
 
     p = EP.fb_ear_params()
     k = FB.build_consts(p)

@@ -3,11 +3,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gstpeaq_tpu import constants as C
-from gstpeaq_tpu import earparams as EP
-from gstpeaq_tpu.models import accum, movs as MOVS
-from gstpeaq_tpu.ops import fft_ear as FE
-from gstpeaq_tpu.utils import numpy_ref as R
+from gstpeaq_jax import constants as C
+from gstpeaq_jax import earparams as EP
+from gstpeaq_jax.models import accum, movs as MOVS
+from gstpeaq_jax.ops import fft_ear as FE
+from gstpeaq_jax.utils import numpy_ref as R
 
 RNG = np.random.default_rng(12)
 
@@ -96,7 +96,7 @@ def test_ehs_matches_spec():
 
 
 def test_ehs_gemm_path_matches_fft_path():
-    """The MXU DFT-GEMM EHS path (TPU throughput route) equals the FFT
+    """The DFT-GEMM EHS path (the float32 tiers' route) equals the FFT
     path to f32 roundoff."""
     p = EP.fft_ear_params(109)
     k = FE.build_consts(p, dtype=jnp.float32, spectrum_dtype=jnp.float32,

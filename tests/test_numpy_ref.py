@@ -12,10 +12,10 @@ import pathlib
 import numpy as np
 import pytest
 
-from gstpeaq_tpu import constants as C
-from gstpeaq_tpu import earparams as EP
-from gstpeaq_tpu.utils import numpy_ref as R
-from gstpeaq_tpu.utils import testsignals as TS
+from gstpeaq_jax import constants as C
+from gstpeaq_jax import earparams as EP
+from gstpeaq_jax.utils import numpy_ref as R
+from gstpeaq_jax.utils import testsignals as TS
 
 GOLDEN = np.load(pathlib.Path(__file__).parent / "golden" / "testpeaq.npz")
 

@@ -6,10 +6,10 @@ import dataclasses
 import numpy as np
 import pytest
 
-from gstpeaq_tpu import api
-from gstpeaq_tpu import constants as C
-from gstpeaq_tpu.utils import numpy_ref as R
-from gstpeaq_tpu.utils import testsignals as TS
+from gstpeaq_jax import api
+from gstpeaq_jax import constants as C
+from gstpeaq_jax.utils import numpy_ref as R
+from gstpeaq_jax.utils import testsignals as TS
 
 N = 40 * 1024
 
@@ -67,8 +67,8 @@ def test_swap_slope_changes_fb_excitation(pair):
     """The swapped slope filter (settings.h:97) flips the smoother's time
     constant; the spec and JAX FB paths must move identically."""
     import jax.numpy as jnp
-    from gstpeaq_tpu import earparams as EP
-    from gstpeaq_tpu.ops import fb_ear as FB
+    from gstpeaq_jax import earparams as EP
+    from gstpeaq_jax.ops import fb_ear as FB
 
     sig = np.asarray(pair[0][:192 * 40], np.float64)
     p = EP.fb_ear_params(92.0)

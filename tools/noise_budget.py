@@ -1,4 +1,4 @@
-"""Per-stage noise budget for the accurate TPU tier (runs on CPU).
+"""Per-stage noise budget for the accurate tier (runs on CPU).
 
 Computes the exact f64 basic-pipeline ODGs on the realistic drift corpus,
 then re-runs with f32 rounding injected at ONE point at a time and reports
@@ -8,9 +8,10 @@ need extended precision to hit the <=1e-3-ODG gate and which can run f32.
 Usage: python tools/noise_budget.py [--pairs N] [--seconds S]
 """
 import argparse
+import pathlib
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import jax
 
@@ -20,11 +21,11 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from gstpeaq_tpu import constants as C
-from gstpeaq_tpu.models import basic, level_adapt, modulation
-from gstpeaq_tpu.ops import fft_ear as FE
-from gstpeaq_tpu.parallel import batch as B
-from tpu_drift import realistic_pairs
+from gstpeaq_jax import constants as C
+from gstpeaq_jax.models import basic, level_adapt, modulation
+from gstpeaq_jax.ops import fft_ear as FE
+from gstpeaq_jax.parallel import batch as B
+from tools.drift import realistic_pairs
 
 
 def r32(x):
@@ -53,7 +54,7 @@ import functools
 
 @functools.lru_cache(maxsize=2)
 def _dft64():
-    from gstpeaq_tpu import earparams as EP
+    from gstpeaq_jax import earparams as EP
     params = EP.fft_ear_params(C.BASIC_BAND_COUNT, 92.0)
     n = C.FFT_FRAMESIZE
     kk = np.arange(n // 2 + 1)

@@ -10,14 +10,15 @@ Run:  python tools/optimize_settings.py [--advanced]
 
 import argparse
 import itertools
+import pathlib
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import numpy as np
 
-from gstpeaq_tpu import conformance
-from gstpeaq_tpu.constants import Settings
+from gstpeaq_jax import conformance
+from gstpeaq_jax.constants import Settings
 
 FLAGS = [
     "swap_mod_patts_for_noise_loudness_movs",
